@@ -29,7 +29,7 @@ namespace {
 
 // Blocks are independent (the whole point of the HRT1 container), so every
 // batch entry point fans out over a small thread pool.  The reference is
-// single-threaded by design (README.md:19); the TPU framework's host runtime
+// single-threaded by design (README.md:19); the framework's host runtime
 // is free to exceed that (SURVEY.md section 2.4).  HSRK_THREADS overrides.
 int n_threads() {
   if (const char *e = std::getenv("HSRK_THREADS")) {

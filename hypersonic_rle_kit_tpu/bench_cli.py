@@ -154,7 +154,7 @@ def _row(name, data, mib, comp_fn, dec_fn, args):
 
 
 def main(argv=None):
-    ap = argparse.ArgumentParser(prog="hsrlekit-tpu")
+    ap = argparse.ArgumentParser(prog="hsrlekit")
     ap.add_argument("file")
     ap.add_argument("--test", action="store_true")
     ap.add_argument("--runs", type=int, default=3)

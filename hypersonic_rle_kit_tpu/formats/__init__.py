@@ -3,7 +3,7 @@
 Each module implements one codec family's byte-level format, producing output
 byte-identical to the reference C library (validated against golden vectors in
 ``tests/``).  These are the "golden" slow paths: correctness anchors for the
-TPU kernels in :mod:`hypersonic_rle_kit_tpu.ops` and the interop layer for
+device code in :mod:`hypersonic_rle_kit_tpu.ops` and the interop layer for
 consuming/producing reference-format streams.
 
 The hot loops here are vectorized with numpy over *runs* (symbol-change

@@ -118,8 +118,7 @@ DEVICE_FUZZ_CODECS = (
 
 
 def fuzz_device_one(data: bytes, s: spec_mod.CodecSpec,
-                    rng: np.random.Generator,
-                    backend: str = "device") -> str | None:
+                    rng: np.random.Generator) -> str | None:
     """Round-trip one input through the HRT1 device pipeline, then mutate
     the container and require a typed error or a clean (possibly wrong)
     decode -- never an unhandled crash.  This is the device-path analog of
@@ -129,20 +128,15 @@ def fuzz_device_one(data: bytes, s: spec_mod.CodecSpec,
     from .parallel import container
 
     blob = api.compress(data, s)
-    falls0 = api.kernel_fallback_count()
-    dec = api.decompress(blob, backend=backend)
+    dec = api.decompress(blob, backend="device")
     if dec != data:
         return f"device round-trip mismatch ({len(dec)} vs {len(data)})"
-    if backend == "kernel" and api.kernel_fallback_count() != falls0:
-        # the kernel lane must exercise the kernel: a silent XLA demotion
-        # here would hide Mosaic bugs behind passing fuzz (VERDICT r4 #5)
-        return "kernel backend silently fell back to XLA"
     for _ in range(4):
         m = bytearray(blob)
         for _ in range(int(rng.integers(1, 9))):
             m[int(rng.integers(len(m)))] ^= 1 << int(rng.integers(8))
         try:
-            api.decompress(bytes(m), backend=backend)
+            api.decompress(bytes(m), backend="device")
         except container.ContainerError:
             pass              # typed rejection is the desired outcome
         except Exception as e:  # noqa: BLE001 - the trap itself
@@ -151,7 +145,7 @@ def fuzz_device_one(data: bytes, s: spec_mod.CodecSpec,
     # truncations must always be rejected
     for cut in (1, len(blob) // 2, len(blob) - 1):
         try:
-            api.decompress(blob[:cut], backend=backend)
+            api.decompress(blob[:cut], backend="device")
             return f"truncated container (len {cut}) accepted"
         except container.ContainerError:
             pass
@@ -161,12 +155,12 @@ def fuzz_device_one(data: bytes, s: spec_mod.CodecSpec,
 
 
 def run_device(inputs, specs, max_failures: int = 1, log=print,
-               seed: int = 0xD0D0, backend: str = "device") -> int:
+               seed: int = 0xD0D0) -> int:
     rng = np.random.default_rng(seed)
     failures = 0
     for n, data in enumerate(inputs):
         for s in specs:
-            err = fuzz_device_one(data, s, rng, backend)
+            err = fuzz_device_one(data, s, rng)
             if err:
                 failures += 1
                 with open("fuzz-failure.bin", "wb") as f:
@@ -199,7 +193,7 @@ def run(inputs, specs, max_failures: int = 1, log=print) -> int:
 
 
 def main(argv=None):
-    ap = argparse.ArgumentParser(prog="hsrlekit-tpu-fuzz")
+    ap = argparse.ArgumentParser(prog="hsrlekit-fuzz")
     ap.add_argument("--iterative", action="store_true")
     ap.add_argument("--random", action="store_true")
     ap.add_argument("--iterations", type=int, default=50)
@@ -210,23 +204,13 @@ def main(argv=None):
     ap.add_argument("--device", action="store_true",
                     help="fuzz the HRT1 device pipeline (compress ->"
                          " device decode, container mutation, truncation)")
-    ap.add_argument("--device-backend", default="device",
-                    choices=("device", "kernel"),
-                    help="device decode backend under --device")
     args = ap.parse_args(argv)
 
     if args.device:
-        # correctness fuzzing pins the CPU backend: XLA semantics match the
-        # accelerator, every input shape would otherwise recompile through
-        # the TPU toolchain, and CI has no chip.  HSRK_FUZZ_DEVICE_TPU=1
-        # overrides for a hardware soak.
-        import os
-        if os.environ.get("HSRK_FUZZ_DEVICE_TPU") != "1":
-            os.environ.setdefault("JAX_COMPILATION_CACHE_DIR",
-                                  "/tmp/hsrk_jax_cache")
-            import jax
-            if jax.config.jax_platforms != "cpu":
-                jax.config.update("jax_platforms", "cpu")
+        # the device pipeline runs on the default JAX backend; every input
+        # shape compiles, so cache compilations across runs
+        from .utils import jax_cache
+        jax_cache.configure()
         specs = [spec_mod.by_name(n) for n in DEVICE_FUZZ_CODECS]
         if args.codec:
             specs = [s for s in spec_mod.REGISTRY if s.name in args.codec]
@@ -235,7 +219,7 @@ def main(argv=None):
                 iterative_inputs(args.sections), args.iterations)
         else:
             inputs = random_inputs(args.sections, args.iterations)
-        failures = run_device(inputs, specs, backend=args.device_backend)
+        failures = run_device(inputs, specs)
         print("fuzz (device):", "FAILED" if failures else "clean")
         return 1 if failures else 0
 

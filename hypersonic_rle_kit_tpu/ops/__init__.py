@@ -1,15 +1,14 @@
-"""Device compute path: XLA/Pallas kernels for encode/decode.
+"""Device compute path: XLA encode/decode.
 
 The reference's SIMD kernel layer (rleX_extreme_common.h, bitpack.h) maps here:
-hand-written x86 intrinsics become VPU-wide vector programs over 8x128 lanes,
-and the scalar command loops become prefix-sum / segmented-scan formulations
-that XLA can tile.
+hand-written x86 intrinsics become data-parallel array programs, and the
+scalar command loops become prefix-sum, gather and scatter formulations
+that XLA compiles for the device.
 
 Modules:
     planar              columnar command IR + host goldens
-    device              XLA block encode/decode (vmapped, shard_map-safe)
-    decode_sup          flagship fused Pallas decode (sorted-event paint/scan)
-    encode_sup          Pallas block encoder (boundary scan + compaction)
+    device              XLA block encode/expand (batched, shard_map-safe)
+    unpack_device       container payload sections -> bit-unpack -> expand
     ref_device          reference-format streams -> planar -> device decode
     bitpack             1/2/3/4-bit pack/unpack (bitpack.h analog)
     mmtf_device         MMTF 128/256 + Bit-MMTF transforms on device

@@ -1,14 +1,14 @@
-"""Device bit-packing kernels — the TPU-native analog of ``bitpack.h``.
+"""Device bit-packing — the data-parallel analog of ``bitpack.h``.
 
 The reference packs byte arrays whose values fit in 1/2/3/4 bits with SSE2
 shuffle/shift pipelines (`bitpack.h:15-1216`, the "3_3"/"3_6" block layouts
-exist only to keep x86 shuffles cheap).  On TPU the natural formulation is a
-bit-matrix reshape: every value is expanded to its ``w`` bits on the VPU, the
+exist only to keep x86 shuffles cheap).  On the device the natural
+formulation is a bit-matrix reshape: every value is expanded to its ``w`` bits, the
 bit stream is reshaped to ``[.., 8]`` groups, and each group is folded into
 one byte with a tiny iota-weighted sum — fully vectorized, shape-static, and
 fused by XLA into surrounding producers/consumers.
 
-Layout (TPU-native, not the reference's SSE block layout): value ``k`` of a
+Layout (device-native, not the reference's SSE block layout): value ``k`` of a
 stream occupies bits ``[k*w, (k+1)*w)``, little-endian within each byte.  The
 byte-exact reference layouts live with their only consumer,
 ``formats/rle8_mmtf.py``; these kernels serve the HRT1 container's packed

@@ -1,4 +1,4 @@
-"""Device decode of the Low Entropy / ``rle8m`` formats — the TPU analog of
+"""Device decode of the Low Entropy / ``rle8m`` formats — the device analog of
 the reference's OpenCL decoder.
 
 The reference's only accelerator backend is an OpenCL kernel that decodes
@@ -7,14 +7,14 @@ the container (offset table + symbol LUT), uploads payload/LUT/offsets, and
 the device runs the scalar expand loop per subsection
 (`rle8_ocl.c:265-413`, kernel `rle8_ocl_kernel.h:6-81`).
 
-The TPU version keeps the same host/device split but replaces the scalar
+This version keeps the same host/device split but replaces the scalar
 work-group loop with the planar IR: the host pass walks each subsection's
 command stream once (O(compressed size)) and lowers it to planar columns
 ``(sym, count, lit_len, lits)``; the device then expands **all** subsections
-at once with the vectorized block decoder (`ops/device.py:decode_blocks`,
-or the fused Pallas kernel via ``api.decompress``).  One subsection maps to
-one block — exactly the work-group-per-subsection shape, but with every
-byte of the expansion vectorized instead of one scalar loop per group.
+at once with the vectorized block decoder (`ops/device.py:decode_blocks`).
+One subsection maps to one block — exactly the work-group-per-subsection
+shape, but with every byte of the expansion vectorized instead of one
+scalar loop per group.
 """
 
 from __future__ import annotations

@@ -3,12 +3,12 @@
 The reference vectorizes MMTF *across* the 16/32 byte lanes while walking the
 stream strictly serially (`mmtf.c:112-178` encode, `:253-380` decode): each
 lane owns a 256-entry move-to-front history, and every 16/32-byte unit does a
-find + rotate on all lanes at once.  The TPU formulation keeps that exact
+find + rotate on all lanes at once.  The device formulation keeps that exact
 lane-parallel shape — one ``lax.scan`` step per unit, each step a fully
 vectorized rank lookup and table shift over ``[lanes, 256]`` — and adds the
 axis the reference never had: the **block axis**.  A long stream is split
 into independent blocks (each with a fresh history, the same convention as
-the HRT1 container), so one TPU core runs ``nb`` MTF chains side by side via
+the HRT1 container), so one device runs ``nb`` MTF chains side by side via
 ``vmap`` and a mesh runs ``nb × n_devices``.  Within a block the chain is
 inherently serial (an MTF table is a data-dependent recurrence) — the
 parallelism budget goes to lanes × blocks, not to time.

@@ -2,7 +2,7 @@
 
 The reference interleaves commands and literals in one sequential byte stream
 (`[symbol][count][range][literals...]`, rle8_extreme_cpu.h:768-931), which
-forces a serial parse.  The TPU-native representation is columnar: per block,
+forces a serial parse.  The device-native representation is columnar: per block,
 fixed-capacity arrays
 
     sym[C]      run symbol of command c

@@ -5,8 +5,8 @@ The reference's decoders walk the command grammar and expand serially
 (rleX_extreme_cpu_decode.h:27-164, rle8_extreme_cpu.h:1825-1913).  Here the
 host walks the same grammar once — O(compressed), no expansion — lowering
 every stream to the planar IR ``(sym, count, lit_len, lits)`` split into
-fixed-size blocks, and the device expands all blocks at once with the fused
-event kernel (ops/decode_sup.py).  This is the same host/device split as the
+fixed-size blocks, and the device expands all blocks at once
+(ops/device.expand).  This is the same host/device split as the
 reference's OpenCL path (rle8_ocl.c:265-413: parse on host, expand on
 device) generalized from Low Entropy (ops/low_entropy_device.py) to the
 whole RLE codec space.
@@ -16,7 +16,7 @@ of an s-byte pattern is, in each of the s phases (output positions with the
 same index mod s), a plain single-byte run, and a literal range is a strided
 slice — so every reference command lowers to s planar commands, still
 O(compressed).  The device decodes the s phase streams as ordinary blocks
-and re-interleaves on-device with one transpose (the TPU analog of the
+and re-interleaves on-device with one transpose (the device analog of the
 reference's staggered broadcast registers, rle24_extreme_cpu_decode.h:30-55).
 
 Grammar walkers mirror the byte-exact host decoders in ``formats/`` (which
@@ -496,20 +496,18 @@ def _iter_for(cspec, buf: bytes):
     raise ValueError(f"no reference-stream device path for {cspec.name!r}")
 
 
-def decompress_ref_device(buf, codec, *, block_size: int = DEFAULT_BLOCK,
-                          interpret: bool | None = None) -> bytes:
+def decompress_ref_device(buf, codec, *,
+                          block_size: int = DEFAULT_BLOCK) -> bytes:
     """Decode a reference-format stream on the device.
 
-    Host walks the grammar once (O(compressed)); the fused event kernel
-    expands all blocks; width re-interleave happens on-device with one
-    transpose.  Falls back to the XLA block decoder when the command
-    density exceeds the kernel's window buckets.
+    Host walks the grammar once (O(compressed)); the device expands all
+    blocks (ops/device.expand) and re-interleaves the width phases with
+    one transpose.
     """
-    import jax
     import jax.numpy as jnp
 
     from .. import spec as spec_mod
-    from . import decode_sup, device as device_mod, planar as planar_mod
+    from . import device as device_mod
 
     cspec = codec if isinstance(codec, spec_mod.CodecSpec) else (
         spec_mod.by_index(codec) if isinstance(codec, int)
@@ -519,9 +517,9 @@ def decompress_ref_device(buf, codec, *, block_size: int = DEFAULT_BLOCK,
     if usize == 0:
         return b""
     m = -(-usize // s)
-    # 1024-multiple blocks keep R = B/128 a multiple of 8 so short streams
-    # still satisfy fits_kernel's stripe-alignment contract (ADVICE r4)
-    B = min(block_size, max(8 * _ROW, -(-m // (8 * _ROW)) * 8 * _ROW))
+    # short streams get one block of their own (rounded to 1 KiB, so
+    # nearby lengths share a compile)
+    B = min(block_size, -(-m // 1024) * 1024)
     # native grammar walk (csrc ref_parse_planar, ~40x the Python
     # iterators); identical planar output, pinned by test_ref_device.py
     cols = nbp = None
@@ -535,37 +533,9 @@ def decompress_ref_device(buf, codec, *, block_size: int = DEFAULT_BLOCK,
     if cols is None:
         builders, cols = parse_to_planar(buf, it, usize, s, B)
         nbp = builders[0].nb
-    sym, count, lit_len, lits, n_cmds, n_lits, block_len = cols
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    y = None
-    # the kernel's boundary-descriptor paint requires every emitted run to
-    # span >= 4 bytes (at most one open/close per output word); reference
-    # grammars with shorter minimum runs (e.g. packed MIN_RANGE 3,
-    # rle8_extreme_cpu.h:2-24) decode via the XLA block decoder instead
-    ncs = np.asarray(n_cmds)
-    cts = np.asarray(count)
-    ridx = np.arange(cts.shape[1])[None, :]
-    emitted = (ridx < (ncs - 1)[:, None]) & (cts > 0)
-    min_run = int(cts[emitted].min()) if emitted.any() else 4
-    if min_run >= 4 and decode_sup.fits_kernel(B, sym.shape[1]):
-        try:
-            y = decode_sup.decode_planar_sup(
-                sym, count, lit_len, lits, n_cmds, n_lits, block_len,
-                block_size=B, interpret=interpret)
-        except Exception:   # shape/density limits (incl. VMEM ceilings)
-            y = None
-    if y is None:                      # density/shape fallback: XLA decoder
-        # the XLA block decoder shapes its output from the literal plane;
-        # the native parse trims lits to max(n_lits), so widen to B here
-        lits_b = np.asarray(lits)
-        if lits_b.shape[1] < B:
-            lits_b = np.pad(lits_b, ((0, 0), (0, B - lits_b.shape[1])))
-        pb = planar_mod.PlanarBlocks(
-            jnp.asarray(sym), jnp.asarray(count), jnp.asarray(lit_len),
-            jnp.asarray(lits_b), jnp.asarray(n_cmds), jnp.asarray(n_lits),
-            jnp.asarray(block_len))
-        y = device_mod.decode_blocks(pb)
+    sym, count, lit_len, lits, n_cmds, _n_lits, block_len = cols
+    y = device_mod.expand(sym, count, lit_len, lits, n_cmds, block_len,
+                          block_size=B)
     if s == 1:
         return np.asarray(y).reshape(-1)[:usize].tobytes()
     out = jnp.transpose(y.reshape(s, nbp * B)[:, :m])   # on-device interleave

@@ -3,7 +3,7 @@
 The reference has no inter-process communication at all (SURVEY.md section
 2.4); its only parallel-decode notion is the `rle8m` subsection container
 decoded by one OpenCL work-group per subsection (rle8_ocl.c:265-413).  The
-TPU design scales the same shape out over a `jax.sharding.Mesh`:
+device design scales the same shape out over a `jax.sharding.Mesh`:
 
 - the uncompressed stream is split into fixed-size blocks; the block axis is
   sharded over the mesh ("block data parallelism", the long-stream analog of
@@ -64,7 +64,7 @@ def pipeline_step(x, block_len, *, capacity: int, min_count: int, mesh: Mesh):
 
     def local(xs, ls):
         pb, size = _encode_local(xs, ls, capacity=capacity, min_count=min_count)
-        # exchange sizes: every device learns all block sizes (ICI all-gather)
+        # exchange sizes: every device learns all block sizes (all-gather over the interconnect)
         all_sizes = jax.lax.all_gather(size, BLOCK_AXIS, tiled=True)
         offsets = jnp.cumsum(all_sizes) - all_sizes   # exclusive prefix sum
         y = dev_ops.decode_blocks(pb)

@@ -38,7 +38,7 @@ def dct_payload():
 def test_width_roundtrip_both_device_paths(rgba_payload, name):
     blob = api.compress(rgba_payload, name)
     assert api.decompress(blob, backend="device") == rgba_payload
-    assert api.decompress(blob, backend="kernel") == rgba_payload
+    assert api.decompress(blob, backend="host") == rgba_payload
 
 
 def test_width_captures_structured_repetition(rgba_payload):
@@ -120,7 +120,7 @@ def test_encoder_backends_agree_with_width(rgba_payload, backend):
 
 def test_single_backends_agree(dct_payload):
     ref = api.compress(dct_payload, "8 Bit Single", backend="host")
-    for be in ("device", "kernel", "native"):
+    for be in ("device", "auto", "native"):
         try:
             got = api.compress(dct_payload, "8 Bit Single", backend=be)
         except RuntimeError:

@@ -68,8 +68,8 @@ def test_native_numpy_unpack_agree(blob):
 def test_deep_subheader_count_mismatch_rejected():
     """A parse-valid deep container whose lut section implies a different
     miss population than the stored n_miss must raise ContainerError on
-    every backend -- including the kernel path, whose device resolver
-    validates the counts it would otherwise trust (ADVICE r4)."""
+    every backend -- including the device path, whose resolver validates
+    the counts it would otherwise trust."""
     rng = np.random.default_rng(11)
     data = np.zeros(300_000, np.uint8)
     # many distinct run symbols so the block dictionary has misses and hits
@@ -100,9 +100,9 @@ def test_deep_subheader_count_mismatch_rejected():
     assert pk is not None
     from hypersonic_rle_kit_tpu.ops import unpack_device
     with pytest.raises(container.ContainerError):
-        unpack_device.decode_packed(pk, interpret=True)
+        unpack_device.decode_packed(pk)
     with pytest.raises(container.ContainerError):
-        api.decompress(hostile, backend="kernel")
+        api.decompress(hostile, backend="device")
 
 
 def test_litdict_layout_and_hostile_litcodes():
@@ -119,7 +119,7 @@ def test_litdict_layout_and_hostile_litcodes():
     assert info.litdict and info.deep
     lk = blocks[0]["lit_k"]
     assert 2 <= lk <= 8
-    for be in ("host", "kernel", "device"):
+    for be in ("host", "auto", "device"):
         assert api.decompress(blob, backend=be) == data
 
     # hostile: zero a block's literal-code section so the implied miss
@@ -155,7 +155,7 @@ def test_pack_for_device_uniform_and_fallback():
     blob = api.compress(bytes(data), "8 Bit")
     pk = container.pack_for_device(blob)
     assert pk is not None
-    y = unpack_device.decode_packed(pk, interpret=True)
+    y = unpack_device.decode_packed(pk)
     assert y.reshape(-1)[: data.size].tobytes() == bytes(data)
 
     # per-block widths (uniform_bits=False): device path must decline
@@ -175,4 +175,4 @@ def test_pack_for_device_uniform_and_fallback():
     widths = {bl["cnt_bits"] for bl in container.parse(blob2)[1]}
     if len(widths) > 1:
         assert container.pack_for_device(blob2) is None
-    assert api.decompress(blob2, backend="kernel") == x.tobytes()
+    assert api.decompress(blob2, backend="device") == x.tobytes()

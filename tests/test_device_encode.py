@@ -1,22 +1,22 @@
-"""Pallas block encoder vs the host golden (byte-identical emission).
-
-Interpret-mode on CPU; compiled on hardware via test_tpu_compiled.py.
-"""
+"""Device block encoder (ops/device.encode_blocks) vs the host golden
+(ops/planar.host_encode_block): byte-identical command emission."""
 
 import numpy as np
-import jax.numpy as jnp
 import pytest
 
-from hypersonic_rle_kit_tpu.ops import encode_sup, planar
+import jax.numpy as jnp
+
+from hypersonic_rle_kit_tpu.ops import device, planar
 
 B = 2048
 
 
 def _check(data, lens, B, min_count=6):
     cap = planar.capacity_for(B, min_count)
-    got = [np.asarray(g) for g in encode_sup.encode_blocks_kernel(
-        jnp.asarray(data), jnp.asarray(lens), capacity=cap,
-        min_count=min_count, interpret=True)]
+    pb = device.encode_blocks(jnp.asarray(data), jnp.asarray(lens),
+                              capacity=cap, min_count=min_count)
+    got = [np.asarray(g) for g in (pb.sym, pb.count, pb.lit_len, pb.lits,
+                                   pb.n_cmds, pb.n_lits)]
     for b in range(data.shape[0]):
         ref = planar.host_encode_block(data[b, : lens[b]], cap, B, min_count)
         names = ["sym", "count", "lit_len", "lits", "n_cmds", "n_lits"]
@@ -69,25 +69,17 @@ def test_min_count_parameter():
     _check(d, np.array([B], np.int32), B, min_count=3)
 
 
-def test_matches_xla_encoder():
-    """Kernel and XLA encoder emit identical planar columns."""
-    from hypersonic_rle_kit_tpu.ops import device
-    rng = np.random.default_rng(5)
-    data = rng.integers(0, 4, (2, B)).astype(np.uint8)
-    data[:, ::2] = 0
-    lens = np.full(2, B, np.int32)
+def test_single_symbol_filter():
+    """only_sym restricts emission to one byte's runs (Single family)."""
+    d = np.zeros((2, B), np.uint8)
+    d[:, 100:200] = 7
+    d[:, 300:400] = 9
     cap = planar.capacity_for(B, 6)
-    a = [np.asarray(g) for g in encode_sup.encode_blocks_kernel(
-        jnp.asarray(data), jnp.asarray(lens), capacity=cap, min_count=6,
-        interpret=True)]
-    pb = device.encode_blocks(jnp.asarray(data), jnp.asarray(lens),
-                              capacity=cap, min_count=6)
-    b = [np.asarray(v) for v in (pb.sym, pb.count, pb.lit_len, pb.lits,
-                                 pb.n_cmds, pb.n_lits)]
-    for i in range(6):
-        if i == 3:
-            for blk in range(2):
-                nl = int(a[5][blk])
-                np.testing.assert_array_equal(a[3][blk][:nl], b[3][blk][:nl])
-        else:
-            np.testing.assert_array_equal(a[i], b[i])
+    pb = device.encode_blocks(jnp.asarray(d), jnp.full(2, B, jnp.int32),
+                              capacity=cap, min_count=6,
+                              only_sym=jnp.array([7, 9], jnp.int32))
+    for b, s in enumerate((7, 9)):
+        ref = planar.host_encode_block(d[b], cap, B, 6, only_sym=s)
+        np.testing.assert_array_equal(np.asarray(pb.sym)[b], ref[0])
+        np.testing.assert_array_equal(np.asarray(pb.count)[b], ref[1])
+        assert int(pb.n_cmds[b]) == int(ref[4])

@@ -72,7 +72,7 @@ _mhu.process_allgather = _orig_ag
 assert _WIRE[0] <= 1024, f"serialization moved {_WIRE[0]} bytes over DCN"
 
 # and the in-mesh size exchange (which crosses the host boundary in this
-# 2-process global mesh) carries O(n_blocks) metadata, as on ICI
+# 2-process global mesh) carries O(n_blocks) metadata
 import re
 hlo = dist.encode_sharded.lower(gx, gl, capacity=cap, min_count=6,
                                 mesh=mesh).as_text()

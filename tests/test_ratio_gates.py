@@ -104,7 +104,7 @@ def test_deep_roundtrips_all_backends(corpus):
     blob = api.compress(payload, "8 Bit")
     from hypersonic_rle_kit_tpu.parallel import container
     assert container.parse(blob)[0].deep
-    for backend in ("device", "host", "kernel"):
+    for backend in ("auto", "device", "host"):
         assert api.decompress(blob, backend=backend) == payload
 
 

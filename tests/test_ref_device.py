@@ -3,7 +3,7 @@
 Streams are produced by the byte-exact host encoders (pinned to the C
 reference by the parity suites), then decoded through the planar device
 path; outputs must equal the host format decoders byte for byte.  This is
-the TPU analog of routing reference artifacts through the OpenCL decoder
+the device analog of routing reference artifacts through the OpenCL decoder
 (rle8_ocl.c:265-413) generalized to the whole RLE codec space
 (rleX_extreme_cpu_decode.h:27-164).
 """
@@ -53,7 +53,7 @@ def test_ref_stream_device_roundtrip(codec, ds):
     want = registry.decompress(blob, codec)
     assert want == data
     got = ref_device.decompress_ref_device(
-        blob, codec, block_size=4096, interpret=True)
+        blob, codec, block_size=4096)
     assert got == want
 
 
@@ -69,10 +69,10 @@ def test_large_block_spanning_runs():
     data = np.concatenate(parts).tobytes()
     blob = registry.compress(data, "8 Bit")
     got = ref_device.decompress_ref_device(
-        blob, "8 Bit", block_size=2048, interpret=True)
+        blob, "8 Bit", block_size=2048)
     assert got == data
 
 
 def test_empty_stream():
     assert ref_device.decompress_ref_device(
-        b"\x00" * 16, "16 Bit (Symbol)", interpret=True) == b""
+        b"\x00" * 16, "16 Bit (Symbol)") == b""
