@@ -27,9 +27,9 @@ NUM_WARPS = 4
 
 
 def _kernel(start_ref, run_at_ref, lit_base_ref, sym_ref, lits_ref,
-            meta_ref, out_ref, *, tile: int, steps: int):
+            meta_ref, out_ref, *, steps: int):
     b = pl.program_id(0)
-    j0 = pl.program_id(1) * tile
+    j0 = pl.program_id(1) * TILE
     n_cmds = meta_ref[b, 0]
     blen = meta_ref[b, 1]
     C = start_ref.shape[1]
@@ -44,9 +44,9 @@ def _kernel(start_ref, run_at_ref, lit_base_ref, sym_ref, lits_ref,
         return lo
 
     c_lo = last_start_le(j0)
-    c_hi = last_start_le(j0 + tile - 1)
+    c_hi = last_start_le(j0 + TILE - 1)
     nbits = 32 - jax.lax.clz(c_hi - c_lo)
-    j = j0 + jnp.arange(tile, dtype=jnp.int32)
+    j = j0 + jnp.arange(TILE, dtype=jnp.int32)
 
     def body(i, lo):                    # vector binary search in the tile
         cand = lo + jax.lax.shift_left(jnp.int32(1), nbits - 1 - i)
@@ -54,7 +54,7 @@ def _kernel(start_ref, run_at_ref, lit_base_ref, sym_ref, lits_ref,
         return jnp.where(ok, cand, lo)
 
     c = jax.lax.fori_loop(0, nbits, body,
-                          jnp.full((tile,), c_lo, jnp.int32))
+                          jnp.full((TILE,), c_lo, jnp.int32))
     in_lit = j < run_at_ref[b, c]
     li = jnp.clip(j + lit_base_ref[b, c], 0, lits_ref.shape[1] - 1)
     lit = plgpu.load(lits_ref.at[b, li], mask=in_lit, other=0)
@@ -63,29 +63,26 @@ def _kernel(start_ref, run_at_ref, lit_base_ref, sym_ref, lits_ref,
 
 
 def expand_bytes(start, run_at, lit_base, sym, lits, n_cmds, block_len, *,
-                 block_size: int, tile: int = TILE,
-                 num_warps: int = NUM_WARPS,
-                 interpret: bool = False) -> jnp.ndarray:
+                 block_size: int, interpret: bool = False) -> jnp.ndarray:
     """Same contract as ops/device.expand_bytes.  ``interpret`` runs the
     kernel in the Pallas interpreter, for the CPU tests only."""
     nb, C = start.shape
     meta = jnp.stack([n_cmds, block_len], axis=1).astype(jnp.int32)
-    Bp = -(-block_size // tile) * tile
+    Bp = -(-block_size // TILE) * TILE
     args = (start, run_at, lit_base, sym.astype(jnp.int32), lits, meta)
     whole = [pl.BlockSpec(a.shape, lambda b, t, n=a.ndim: (0,) * n)
              for a in args]
     out = pl.pallas_call(
-        functools.partial(_kernel, tile=tile,
-                          steps=max(1, (C - 1).bit_length())),
-        grid=(nb, Bp // tile),
+        functools.partial(_kernel, steps=max(1, (C - 1).bit_length())),
+        grid=(nb, Bp // TILE),
         in_specs=whole,
-        out_specs=pl.BlockSpec((None, tile), lambda b, t: (b, t)),
+        out_specs=pl.BlockSpec((None, TILE), lambda b, t: (b, t)),
         # inside shard_map the output varies over the same mesh axes as
         # the command tables
         out_shape=jax.ShapeDtypeStruct((nb, Bp), jnp.uint8,
                                        vma=jax.typeof(start).vma),
         backend="triton",
-        compiler_params=plgpu.CompilerParams(num_warps=num_warps,
+        compiler_params=plgpu.CompilerParams(num_warps=NUM_WARPS,
                                              num_stages=1),
         interpret=interpret,
         name="hrt1_expand_triton",
